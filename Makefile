@@ -1,19 +1,19 @@
 # pgslam_tpu build/test entry points (the reference's CMake analog).
 
-NATIVE_SRC := pgslam_tpu/native/graph_core.cpp
-NATIVE_LIB := pgslam_tpu/native/libpgslam_graph.so
-
-.PHONY: all native test bench verify clean
+.PHONY: all native test smoke bench verify clean
 
 all: native
 
-native: $(NATIVE_LIB)
-
-$(NATIVE_LIB): $(NATIVE_SRC)
-	g++ -O2 -shared -fPIC -std=c++17 $< -o $@
+# The native library builds itself on first use, named after a hash of
+# its sources (pgslam_tpu/native/__init__.py); this target just forces it.
+native:
+	python -c "from pgslam_tpu.native import native_available as a; assert a()"
 
 test: native
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
+
+smoke:
+	python chip_smoke.py
 
 bench: native
 	python bench.py
@@ -22,5 +22,5 @@ verify: native
 	python scripts/verify_drive.py
 
 clean:
-	rm -f $(NATIVE_LIB)
+	rm -f pgslam_tpu/native/libpgslam_graph*.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -1,10 +1,10 @@
-"""pgslam_tpu — a TPU-native pose-graph SLAM framework.
+"""pgslam_tpu — a pose-graph SLAM framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
 C++ library ``Ellon/pgslam`` (header-only orchestration over
 libpointmatcher ICP + GTSAM optimization + Boost.Graph). The compute core —
 kNN correspondence search, filter chains, rigid-transform estimation, and
-SE(3) pose-graph optimization — runs as fixed-shape jitted kernels on TPU;
+SE(3) pose-graph optimization — runs as fixed-shape jitted code on the GPU;
 the pose graph and pipeline orchestration run host-side with an optional
 C++ native graph core.
 
@@ -19,9 +19,10 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# SE(3) math and 6x6 solves need true fp32 accumulation; the platform
-# default here degrades matmuls to bf16-like precision. Hot kernels that
-# can tolerate lower precision request it explicitly.
+# SE(3) math, 6x6 solves and the one-hot incidence gathers need true fp32
+# products; on the GPU a float32 matmul otherwise runs in TF32 (about
+# three decimal digits). Hot paths that can tolerate lower precision
+# request it explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from . import se3, metrics  # noqa: F401

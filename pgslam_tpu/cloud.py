@@ -1,4 +1,4 @@
-"""Fixed-shape padded point-cloud container — the TPU-native analog of
+"""Fixed-shape padded point-cloud container — the analog of
 libpointmatcher's ``DataPoints`` (reference: ``types.h:20``, concatenation at
 ``LocalMap.hpp:222``, emptiness check at ``LocalMap.hpp:85``).
 
@@ -12,17 +12,19 @@ named descriptor rows, a :class:`Cloud` stores:
 
 Every shape is static, so any pipeline built on Clouds compiles once and
 never recompiles as real point counts vary — the core fixed-shape discipline
-of the TPU rebuild.
+of this rebuild.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from .utils.pytree import pytree_dataclass
 
 # Descriptor channels that rotate with the cloud (unit direction fields).
 ROTATED_DESCRIPTORS = ("normals", "observationDirections", "eigVectors")
@@ -30,8 +32,8 @@ ROTATED_DESCRIPTORS = ("normals", "observationDirections", "eigVectors")
 # Fixed-point protocol: a Cloud whose ``points`` are int16 is MILLIMETER
 # fixed point (the KITTI-native grid; +-32.767 m envelope, 0.5 mm max
 # round-off vs ~10 mm LiDAR range noise). Packed clouds halve
-# host->device bytes — the lever for transfer-floor-bound live SLAM
-# (BENCH_NOTES config-4 profile) — and every jitted ingest path
+# host->device bytes — the lever for transfer-bound live SLAM — and
+# every jitted ingest path
 # dequantizes them in-graph via :func:`dequantize_cloud`.
 MM_SCALE = 1000.0
 
@@ -45,13 +47,13 @@ def dequantize_cloud(cloud: Cloud, dtype=jnp.float32) -> Cloud:
         points=cloud.points.astype(dtype) * (1.0 / MM_SCALE))
 
 
-@struct.dataclass
+@pytree_dataclass
 class Cloud:
     """Padded point cloud. A pytree; safe under jit/vmap/scan."""
 
     points: jax.Array            # [N, 3]
     mask: jax.Array              # [N] bool
-    descriptors: Dict[str, jax.Array] = struct.field(default_factory=dict)
+    descriptors: Dict[str, jax.Array] = dataclasses.field(default_factory=dict)
 
     @property
     def capacity(self) -> int:

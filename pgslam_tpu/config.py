@@ -35,11 +35,15 @@ from __future__ import annotations
 import io
 from typing import Any, Dict, List, Tuple, Union
 
-import yaml
-
 from .ops import filters as F
 from .ops import outlier as O
 from .ops.icp import ICPConfig
+
+
+def _safe_load(stream):
+    import yaml  # PyYAML is needed only to read YAML configs
+    return yaml.safe_load(stream)
+
 
 _FILTERS = {
     "IdentityDataPointsFilter":
@@ -142,7 +146,7 @@ def parse_outlier_chain(spec) -> Tuple:
 def parse_icp_config(doc: Union[str, Dict, io.IOBase]) -> ICPConfig:
     """Parse a libpointmatcher-style ICP pipeline into an ICPConfig."""
     if isinstance(doc, (str, io.IOBase)):
-        doc = yaml.safe_load(doc)
+        doc = _safe_load(doc)
     doc = doc or {}
     kwargs: Dict[str, Any] = {}
 
@@ -161,10 +165,9 @@ def parse_icp_config(doc: Union[str, Dict, io.IOBase]) -> ICPConfig:
             name = next(iter(matcher))
             params = matcher[name] or {}
         if name == "KDTreeMatcher":
-            # Exact kNN. The fused Pallas kernel is the TPU-native
-            # equivalent of the reference's kd-tree (Localizer.hpp:317);
-            # on the CPU backend match_clouds transparently falls back to
-            # the tiled brute-force path with identical semantics.
+            # Exact kNN, the reference's kd-tree (Localizer.hpp:317): the
+            # matcher kernel on the GPU, the tiled brute-force path with
+            # identical semantics on the CPU (ops.knn_pallas.use_kernel).
             kwargs["matcher"] = "pallas"
             kwargs["knn"] = int(params.get("knn", 1))
         elif name == "BruteForceMatcher":
@@ -206,7 +209,7 @@ def load_icp_config(path: str) -> ICPConfig:
 def load_input_filters(path: str) -> Tuple:
     """Parse an input-filter chain file (a bare YAML list of filters)."""
     with open(path) as fh:
-        return parse_filter_chain(yaml.safe_load(fh))
+        return parse_filter_chain(_safe_load(fh))
 
 
 def load_slam_config(path: str):
@@ -218,7 +221,7 @@ def load_slam_config(path: str):
     from .slam import SlamConfig
 
     with open(path) as fh:
-        doc = yaml.safe_load(fh) or {}
+        doc = _safe_load(fh) or {}
 
     loc = doc.get("localizer", {}) or {}
     localizer = LocalizerConfig(

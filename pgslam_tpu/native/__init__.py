@@ -3,7 +3,9 @@
 ``graph_core.cpp`` provides the pose-graph shortest-path engine (the role
 Boost.Graph plays in the reference); ``scan_loader.cpp`` is the async
 scan-stream IO worker (threaded KITTI ``.bin`` reader with prefetch). The
-library is compiled on first import with the system toolchain; if
+library is compiled on first use with the system toolchain, into a file
+named after a hash of the sources, so a library built elsewhere or from
+other sources is never loaded; if
 compilation fails (no compiler in a restricted environment), everything
 degrades gracefully to the pure-Python implementations
 (:mod:`pgslam_tpu.graph.shortest_path`,
@@ -13,6 +15,7 @@ degrades gracefully to the pure-Python implementations
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -22,33 +25,46 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "graph_core.cpp"),
          os.path.join(_DIR, "scan_loader.cpp")]
-_LIB = os.path.join(_DIR, "libpgslam_graph.so")
 
 _lib = None
 
 
-def _build() -> bool:
+def library_path() -> str:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(_DIR, f"libpgslam_graph_{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    # Build to a private name, then rename: concurrent importers (test
+    # workers) never load a half-written library.
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
-             *_SRCS, "-o", _LIB],
+             *_SRCS, "-o", tmp],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, path)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if (not os.path.exists(_LIB)
-            or any(os.path.getmtime(_LIB) < os.path.getmtime(s)
-                   for s in _SRCS)):
-        if not _build():
-            return None
+    path = library_path()
+    if not os.path.exists(path) and not _build(path):
+        return None
     try:
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(path)
     except OSError:
         return None
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -142,13 +158,11 @@ class ScanLoader:
         ``[N, 3]`` arrays instead of float32: the loader's IO thread
         quantizes (1 mm grid = 0.5 mm max round-off vs ~10 mm LiDAR
         range noise; points beyond the +-32.767 m int16 envelope are
-        dropped), and the packed stream halves host->device bytes —
-        the live-SLAM pipeline on relay/PCIe-bandwidth-bound hosts is
-        transfer-floor-bound (BENCH_NOTES config-4 profile). Every
+        dropped), and the packed stream halves host->device bytes. Every
         jitted ingest path dequantizes int16 clouds in-graph
         (``pgslam_tpu.cloud.MM_SCALE`` protocol). The quantize flag is
         plumbed into the loader: float-path consumers never pay the
-        per-scan int16 conversion on the shared host core (ADVICE r4)."""
+        per-scan int16 conversion on the host."""
         lib = _load()
         if lib is None:
             raise ImportError("native scan loader unavailable")
@@ -174,7 +188,7 @@ class ScanLoader:
         # End-of-stream is the DISTINCT -3 code (and sl_eos); a failed
         # read (-2) or a legitimately empty scan (0 points — e.g. every
         # point dropped by the int16 envelope) is SKIPPED, never allowed
-        # to truncate the rest of the sequence mid-stream (ADVICE r4).
+        # to truncate the rest of the sequence mid-stream.
         while True:
             if self._h < 0:
                 raise StopIteration

@@ -32,9 +32,9 @@
 // A scan whose points were ALL dropped by the int16 envelope (or a file
 // that failed to read) must NOT end the stream: end-of-stream is the
 // distinct -3 (and sl_eos), so consumers skip pathological scans instead
-// of silently truncating the sequence (ADVICE r4).
+// of silently truncating the sequence.
 //
-// The int16 path exists for relay-/PCIe-bandwidth-bound hosts: LiDAR
+// The int16 path exists for transfer-bound hosts: LiDAR
 // packets are fixed-point to begin with, a 1 mm grid adds 0.5 mm max
 // round-off against ~10 mm range noise, and halving the host->device
 // bytes directly raises the transfer-bound live-SLAM pipeline floor.

@@ -1,4 +1,4 @@
-"""TPU-native compute kernels for the ICP engine.
+"""Device compute kernels for the ICP engine.
 
 This package replaces the numeric core the reference delegates to
 libpointmatcher (SURVEY.md §2b): correspondence search (:mod:`knn`,

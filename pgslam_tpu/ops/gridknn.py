@@ -1,10 +1,9 @@
 """Voxel-hash candidate kNN — the fast matcher for large clouds.
 
 Brute-force kNN is O(Nq * Nr) and at Velodyne scale (64k x ~200k) burns
-~10^10 distance ops per ICP iteration with a useless k=3 contraction that
-can't fill the MXU. This matcher replaces the reference's kd-tree
-(``Localizer.hpp:317,328``) with the TPU-shaped equivalent of a spatial
-hash:
+~10^10 distance ops per ICP iteration. This matcher replaces the
+reference's kd-tree (``Localizer.hpp:317,328``) with a fixed-shape
+spatial hash:
 
 * **build** (once per ``setMap``): bucket reference points into voxel
   cells of size ``cell_size``, hash cell coords into a fixed-size table
@@ -30,14 +29,14 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils.pytree import pytree_dataclass
 from .knn import INF, Matches
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791  # classic spatial-hash primes
 
 
-@struct.dataclass
+@pytree_dataclass
 class GridIndex:
     """Precomputed voxel-hash index over a reference cloud."""
 

@@ -1,21 +1,31 @@
-"""Fused Pallas TPU kernel for nearest-neighbour correspondence search.
+"""Exact masked 1-NN search as a Pallas kernel for NVIDIA GPUs (Triton route).
 
-The hot op of ICP is: for every reading point, the index and squared
-distance of its nearest reference point. The XLA paths either materialize
-huge distance blocks (brute force) or lean on TPU row-gathers (voxel
-hash) — both HBM-bound. This kernel keeps everything on-chip:
+The matcher is the inner loop of every ICP iteration. The plain XLA
+version (:func:`pgslam_tpu.ops.knn.knn_brute_force`) computes
+``|q|^2 - 2 q.r + |r|^2`` as an ``[Nq, tile]`` block per reference tile,
+which goes through device memory. This kernel keeps everything in
+registers:
 
-* grid = (query tiles, reference tiles), reference innermost;
-* the cross-term ``q . r`` runs on the MXU (``[TQ, 8] x [8, TR]`` — the
-  coordinate dim padded 3->8);
-* ``d2 = |r|^2 - 2 q.r`` (the |q|^2 row constant is added back outside —
-  it cannot change the argmin), masking, and the running min/argmin all
-  happen in VMEM on the VPU; the ``[TQ, TR]`` block never touches HBM.
+* the grid runs over (query blocks, reference splits). A block holds
+  ``block_q`` queries; a split is a contiguous run of reference tiles, so
+  that a small reading (a few thousand points) still fills the card;
+* an in-kernel loop walks the split's reference tiles of ``block_r``
+  points. Each (query, slot) pair keeps a running min distance and the
+  tile it came from, so the loop body is three differences, three FMAs,
+  one compare and two selects, with no cross-lane reduction;
+* the squared distance is computed directly as ``sum((q - r)^2)``: a K=3
+  contraction gives the tensor cores nothing to do, and the direct
+  difference has no cancellation at 50 m coordinates;
+* each program writes one distance and one id per query; the splits are
+  combined by a small argmin in XLA.
 
-HBM traffic is exactly: read Q + read R per query-tile sweep + write two
-[NQ] vectors. For 64k x 64k fp32 the kernel is VPU-bound at a few ms —
-two orders of magnitude faster than the gather-based path measured on
-this chip.
+Masked reference points carry an ``+inf`` x coordinate, so their
+distance is ``+inf`` and a strict ``<`` never selects them. Ties go to the
+lowest reference index, as in the brute-force matcher.
+
+The kernel serves k=1 only (what ICP uses); :func:`nn_pallas` sends k>1
+to the brute-force matcher. :func:`use_kernel` decides, by platform,
+whether the kernel runs at all.
 """
 
 from __future__ import annotations
@@ -25,260 +35,135 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from .knn import Matches
+from .knn import Matches, knn_brute_force
 
-NEG_BIG = -3.4e38  # sentinel for masked entries (works with max-reduce)
-# Packed (baked-score) modes: masked references carry a finite -|r|^2
-# sentinel of -3e38 inside the score operand, so their MXU scores land
-# strictly below this hit floor while every valid score (~|2 q.r|,
-# <= ~1e9 even at km coordinates) lands strictly above it. Finite, not
-# inf: an inf would turn the bf16 hi/lo split into NaNs.
-INVALID_RSQ = 3.0e38
-HIT_FLOOR_BAKED = -1.0e38
-
-
-def _kernel(q_ref, rT_ref, rsq_ref, bestd_ref, besti_ref, *, precision, k,
-            baked=False):
-    """One (i, j) grid step: fold reference tile j into query tile i's
-    running top-k. Scores are NEGATED distances so masked entries can use a
-    single big negative sentinel with max-reduction.
-
-    Streaming top-k: ``k`` extraction rounds pull the tile's k best
-    (mask-out-the-argmax-column between rounds), each folded into the
-    running ``[TQ, k]`` buffers by replace-the-current-min. k is static
-    and small (<= 8), so the extra VPU passes stay a minor epilogue next
-    to the MXU cross-term.
-
-    ``baked``: the packed bf16 modes carry ``2r`` and split ``-|r|^2``
-    rows in the reference operand (paired with ones columns in the
-    query), so the whole argmax-safe score comes off the MXU — no score
-    assembly or sentinel clamp on the VPU, and no rsq operand at all
-    (masked references carry the finite INVALID_RSQ bake-in instead of
-    the +inf rsq row; ``rsq_ref`` is None in baked calls)."""
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        bestd_ref[:] = jnp.full_like(bestd_ref, NEG_BIG)
-        besti_ref[:] = jnp.zeros_like(besti_ref)
-
-    cross = jnp.dot(q_ref[:], rT_ref[:], precision=precision,
-                    preferred_element_type=jnp.float32)       # [TQ, TR]
-    # (bf16 operand modes pre-pack any hi/lo split into the contraction
-    # dim — see ``_pack_operands`` — so this is always ONE MXU pass with
-    # f32 accumulation unless precision="highest".)
-    if baked:
-        score = cross  # = 2 q.r - |r|^2, finite by construction
-    else:
-        # score = -(|r|^2 - 2 q.r); rsq row is +inf-masked -> sentinel.
-        score = 2.0 * cross - rsq_ref[:]
-        score = jnp.maximum(score, NEG_BIG)                   # kill -inf/nan
-    tr = score.shape[1]
-    cols = jax.lax.broadcasted_iota(jnp.int32, score.shape, 1)
-    bestd = bestd_ref[:]                                      # [TQ, k]
-    besti = besti_ref[:]
-    kcols = jax.lax.broadcasted_iota(jnp.int32, bestd.shape, 1)
-    for _ in range(k):
-        tile_best = jnp.max(score, axis=1, keepdims=True)     # [TQ, 1]
-        is_best = score >= tile_best
-        local_arg = jnp.min(jnp.where(is_best, cols, tr), axis=1,
-                            keepdims=True)                    # [TQ, 1]
-        tile_arg = local_arg + j * tr
-        if k > 1:  # retire the winning column before the next round
-            score = jnp.where(cols == local_arg, NEG_BIG, score)
-        cur_min = jnp.min(bestd, axis=1, keepdims=True)       # [TQ, 1]
-        min_pos = jnp.min(jnp.where(bestd <= cur_min, kcols, k),
-                          axis=1, keepdims=True)              # [TQ, 1]
-        replace = (kcols == min_pos) & (tile_best > cur_min)  # [TQ, k]
-        bestd = jnp.where(replace, tile_best, bestd)
-        besti = jnp.where(replace, tile_arg, besti)
-    bestd_ref[:] = bestd
-    besti_ref[:] = besti
+# Enough programs to keep every SM of the card busy with a few blocks each
+# when the query set is small, but at least 16 reference tiles per program:
+# shorter walks pay the per-program setup and final reduction too often
+# (under vmap the batch multiplies the programs anyway). Measured on an
+# H100 (PERF.md).
+_TARGET_PROGRAMS = 1024
+_MIN_TILES_PER_SPLIT = 16
+# Warps per program for the default 64x64 tile: 4 was best or within 6%
+# of best among the block shapes and warp counts tried on an H100
+# (PERF.md).
+_NUM_WARPS = 4
 
 
-def _bf16_split(x: jax.Array):
-    """Exact-sum bf16 decomposition: x ~= hi + lo.
+def use_kernel(platform: str) -> bool:
+    """The one place that decides whether the matcher kernel runs.
 
-    Implemented by mantissa bit-masking, NOT ``astype(bf16).astype(f32)``:
-    this platform compiles XLA with ``--xla_allow_excess_precision=true``,
-    under which the downcast/upcast pair can fold to the identity and the
-    residual constant-folds to zero (observed on-chip), silently turning
-    the ~f32-accurate packed mode into plain bf16."""
-    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    hi_f32 = jax.lax.bitcast_convert_type(
-        bits & jnp.uint32(0xFFFF0000), jnp.float32)
-    return hi_f32.astype(jnp.bfloat16), (x - hi_f32).astype(jnp.bfloat16)
-
-
-def _split3(x: jax.Array):
-    """Three-term bf16 decomposition (~2^-22 relative) via mantissa
-    bit-masking (see ``_bf16_split`` for why never astype round-trips)."""
-    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
-    hi = jax.lax.bitcast_convert_type(bits & jnp.uint32(0xFFFF0000),
-                                      jnp.float32)
-    r1 = x - hi
-    bits1 = jax.lax.bitcast_convert_type(r1, jnp.uint32)
-    mid = jax.lax.bitcast_convert_type(bits1 & jnp.uint32(0xFFFF0000),
-                                       jnp.float32)
-    return (hi.astype(jnp.bfloat16), mid.astype(jnp.bfloat16),
-            (r1 - mid).astype(jnp.bfloat16))
+    ``"gpu"`` runs the kernel; ``"cpu"`` takes the XLA brute-force path
+    (the kernel has no native CPU lowering, and interpret mode is for
+    tests); any other platform is an error rather than a silent
+    fallback."""
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
+        return False
+    raise NotImplementedError(
+        f"no nearest-neighbour kernel for platform {platform!r}")
 
 
-def _pack_operands(qf: jax.Array, rf: jax.Array, nrsq: jax.Array,
-                   precision: str):
-    """Lay out the [*, 3] coordinate operands for the in-kernel matmul.
+def _kernel(qx_ref, qy_ref, qz_ref, rx_ref, ry_ref, rz_ref, d_ref, i_ref,
+            *, block_r: int, tiles_per_split: int):
+    s = pl.program_id(1)
+    qx = qx_ref[...][:, None]                                 # [BQ, 1]
+    qy = qy_ref[...][:, None]
+    qz = qz_ref[...][:, None]
+    bq = qx.shape[0]
+    base = s * (tiles_per_split * block_r)
 
-    Returns (q [NQp, K], rT [K, NRp], dot_precision, baked) with K padded
-    to the f32/bf16 sublane quantum (8/16). See ``nn_pallas`` for the
-    scheme. The packed bf16 modes are "baked": the reference operand
-    carries ``2r`` plus the 3-term split of ``nrsq = -|r|^2`` (masked
-    entries -INVALID_RSQ), paired with ones columns in the query, so the
-    kernel's matmul result IS the argmax-safe score ``2 q.r - |r|^2``
-    with no VPU epilogue (the score-assembly and sentinel-clamp passes
-    over [TQ, TR] were the measured matcher ceiling, BENCH_NOTES).
-    """
-    if precision == "highest":
-        q = jnp.pad(qf, ((0, 0), (0, 5)))                      # [NQp, 8]
-        rT = jnp.pad(rf, ((0, 0), (0, 5))).T                   # [8, NRp]
-        return q, rT, jax.lax.Precision.HIGHEST, False
-    nh, nm, nl = (t[:, None] for t in _split3(nrsq))           # [NRp, 1]
-    one = jnp.ones((qf.shape[0], 1), jnp.bfloat16)
-    z1q = jnp.zeros((qf.shape[0], 1), jnp.bfloat16)
-    z1r = jnp.zeros_like(nh)
-    if precision == "high":
-        qh, ql = _bf16_split(qf)
-        r2h, r2l = _bf16_split(2.0 * rf)
-        q = jnp.concatenate([qh, ql, qh, ql, one, one, one, z1q],
-                            axis=1)                            # [NQp, 16]
-        r = jnp.concatenate([r2h, r2h, r2l, r2l, nh, nm, nl, z1r],
-                            axis=1)
-        # Explicit DEFAULT: the package's global jax_default_matmul_precision
-        # is "highest", which Mosaic rejects for bf16 operands.
-        return q, r.T, jax.lax.Precision.DEFAULT, True
-    if precision == "default":
-        q = jnp.concatenate([qf.astype(jnp.bfloat16), one, one, one],
-                            axis=1)
-        r = jnp.concatenate([(2.0 * rf).astype(jnp.bfloat16), nh, nm, nl],
-                            axis=1)
-        q = jnp.pad(q, ((0, 0), (0, 10)))                      # [NQp, 16]
-        rT = jnp.pad(r, ((0, 0), (0, 10))).T                   # [16, NRp]
-        return q, rT, jax.lax.Precision.DEFAULT, True
-    raise ValueError(f"unknown pallas matcher precision: {precision!r}")
+    def body(t, carry):
+        best_d, best_t = carry
+        sl = pl.ds(base + t * block_r, block_r)
+        dx = qx - rx_ref[sl][None, :]                         # [BQ, BR]
+        dy = qy - ry_ref[sl][None, :]
+        dz = qz - rz_ref[sl][None, :]
+        d2 = dx * dx + dy * dy + dz * dz
+        better = d2 < best_d
+        return (jnp.where(better, d2, best_d),
+                jnp.where(better, t, best_t))
+
+    init = (jnp.full((bq, block_r), jnp.inf, jnp.float32),
+            jnp.zeros((bq, block_r), jnp.int32))
+    best_d, best_t = jax.lax.fori_loop(0, tiles_per_split, body, init)
+    d = jnp.min(best_d, axis=1)                               # [BQ]
+    slot = jax.lax.broadcasted_iota(jnp.int32, (bq, block_r), 1)
+    ids = base + best_t * block_r + slot
+    big = jnp.int32(2 ** 31 - 1)
+    d_ref[...] = d
+    i_ref[...] = jnp.min(jnp.where(best_d == d[:, None], ids, big), axis=1)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("k", "tile_q", "tile_r", "precision"))
+def _splits(nq_blocks: int, nr_tiles: int) -> int:
+    return max(1, min(nr_tiles // _MIN_TILES_PER_SPLIT,
+                      -(-_TARGET_PROGRAMS // nq_blocks)))
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("k", "block_q", "block_r", "interpret"))
 def nn_pallas(query: jax.Array,            # [NQ, 3]
               query_mask: jax.Array,       # [NQ]
               reference: jax.Array,        # [NR, 3]
               reference_mask: jax.Array,   # [NR]
-              *, k: int = 1, tile_q: int = 512, tile_r: int = 2048,
-              precision: str = "highest") -> Matches:
-    """Exact masked kNN via the fused kernel. Returns squared distances
-    ``[NQ, k]`` sorted ascending (+inf for masked queries / exhausted
-    references) and indices.
+              *, k: int = 1, block_q: int = 64, block_r: int = 64,
+              interpret: bool = False) -> Matches:
+    """Exact masked nearest neighbour. Returns squared distances
+    ``[NQ, k]`` (+inf for masked queries or when no reference is valid)
+    and indices (0 where the distance is +inf), like
+    :func:`knn_brute_force`.
 
-    ``precision`` controls the accuracy/cost of the in-kernel cross-term
-    matmul. The contraction dim is tiny (3 coords padded to the MXU's
-    K=128), so instead of asking the compiler for multi-pass f32
-    emulation (which costs one FULL pass per bf16 product, and which this
-    chip's compiler rejects for the 3-pass HIGH enum anyway) we pack the
-    error-compensation terms into the otherwise-wasted K slots:
-
-    * "highest" — f32 operands, bit-exact 6-pass decomposition; the
-      score ``2 q.r - |r|^2`` assembles on the VPU from the exact rsq
-      row (matches the brute XLA argmin bit-for-bit).
-    * "high"    — each f32 coordinate split as bf16 hi + bf16 lo; the
-      contraction dim carries ``[q_hi,q_lo,q_hi,q_lo] . [2r_hi,2r_hi,
-      2r_lo,2r_lo]`` (12 slots) PLUS three ones columns against the
-      3-term bf16 split of ``-|r|^2`` (15 of 16 slots), so ONE bf16 MXU
-      pass with f32 accumulation emits the argmax-safe score directly —
-      no VPU epilogue over [TQ, TR]. ~f32-accurate (the |r|^2 split is
-      ~2^-22 relative) at 6x the "highest" matmul throughput.
-    * "default" — bf16-rounded coordinates + the same baked score rows,
-      one pass (cheapest; NN ids can drift on near-ties at long range).
-
-    Lower precision can only flip near-ties between almost-equidistant
-    neighbors — harmless to ICP, which trims and averages thousands of
-    correspondences; the REPORTED distances are exact either way (baked
-    modes re-derive them from the winning ids below)."""
+    k>1 is served by :func:`knn_brute_force`: the running top-k buffers
+    would cost registers that the k=1 loop spends on its tile. ``interpret``
+    runs the kernel in the Pallas interpreter; tests pass it on the CPU."""
+    if k != 1:
+        return knn_brute_force(query, query_mask, reference, reference_mask,
+                               k=k)
     nq, nr = query.shape[0], reference.shape[0]
-    pq = (-nq) % tile_q
-    pr = (-nr) % tile_r
-    qf = jnp.pad(query.astype(jnp.float32), ((0, pq), (0, 0)))  # [NQp, 3]
-    rf = jnp.pad(reference.astype(jnp.float32), ((0, pr), (0, 0)))
-    rsq = jnp.sum(rf * rf, axis=1)                              # exact, f32
-    rmask = jnp.pad(reference_mask, (0, pr), constant_values=False)
-    nrsq = -jnp.where(rmask, rsq, INVALID_RSQ)                  # [NRp]
-    q, rT, dot_precision, baked = _pack_operands(qf, rf, nrsq, precision)
+    nq_blocks = -(-nq // block_q)
+    nr_tiles = -(-nr // block_r)
+    n_splits = _splits(nq_blocks, nr_tiles)
+    tiles_per_split = -(-nr_tiles // n_splits)
+    nqp = nq_blocks * block_q
+    nrp = n_splits * tiles_per_split * block_r
 
-    kdim = q.shape[1]
-    nqp, nrp = q.shape[0], rT.shape[1]
-    grid = (nqp // tile_q, nrp // tile_r)
-    in_specs = [
-        pl.BlockSpec((tile_q, kdim), lambda i, j: (i, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((kdim, tile_r), lambda i, j: (0, j),
-                     memory_space=pltpu.VMEM),
-    ]
-    if baked:
-        # The score sentinel is baked into rT — no rsq operand, no dead
-        # per-tile DMA of a [1, tile_r] block.
-        kern = (lambda q_ref, rT_ref, bd_ref, bi_ref:
-                _kernel(q_ref, rT_ref, None, bd_ref, bi_ref,
-                        precision=dot_precision, k=k, baked=True))
-        inputs = (q, rT)
-    else:
-        # Masked reference -> +inf rsq -> score sentinel in-kernel.
-        rsq_row = jnp.where(rmask, rsq, jnp.inf)[None, :]       # [1, NRp]
-        kern = functools.partial(_kernel, precision=dot_precision, k=k)
-        in_specs.append(pl.BlockSpec((1, tile_r), lambda i, j: (0, j),
-                                     memory_space=pltpu.VMEM))
-        inputs = (q, rT, rsq_row)
-    # Interpreter mode keeps the kernel testable on the CPU backend.
-    interpret = jax.default_backend() == "cpu"
-    bestd, besti = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((tile_q, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_q, k), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nqp, k), jnp.float32),
-            jax.ShapeDtypeStruct((nqp, k), jnp.int32),
-        ],
+    q = jnp.pad(query.astype(jnp.float32), ((0, nqp - nq), (0, 0)))
+    r = reference.astype(jnp.float32)
+    rx = jnp.where(reference_mask, r[:, 0], jnp.inf)
+    rx = jnp.pad(rx, (0, nrp - nr), constant_values=jnp.inf)
+    ry = jnp.pad(r[:, 1], (0, nrp - nr))
+    rz = jnp.pad(r[:, 2], (0, nrp - nr))
+
+    q_spec = pl.BlockSpec((block_q,), lambda i, s: (i,))
+    r_spec = pl.BlockSpec((nrp,), lambda i, s: (0,))
+    out_spec = pl.BlockSpec((block_q,), lambda i, s: (s * nq_blocks + i,))
+    d, ids = pl.pallas_call(
+        functools.partial(_kernel, block_r=block_r,
+                          tiles_per_split=tiles_per_split),
+        grid=(nq_blocks, n_splits),
+        in_specs=[q_spec] * 3 + [r_spec] * 3,
+        out_specs=[out_spec, out_spec],
+        out_shape=[jax.ShapeDtypeStruct((n_splits * nqp,), jnp.float32),
+                   jax.ShapeDtypeStruct((n_splits * nqp,), jnp.int32)],
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(*inputs)
+        name="nn_pallas",
+    )(q[:, 0], q[:, 1], q[:, 2], rx, ry, rz)
 
-    bestd = bestd[:nq]
-    besti = besti[:nq]
-    if precision == "highest":
-        qsq = jnp.sum(query.astype(jnp.float32) ** 2, axis=1, keepdims=True)
-        d2 = jnp.maximum(qsq - bestd, 0.0)                      # un-negate
-    else:
-        # The winning id came from the approximated cross term, but the
-        # REPORTED distance must be exact — it feeds absolute outlier
-        # thresholds (MaxDist) downstream. One [NQ*k] row-gather matches
-        # the cost of the error-element assembly that follows anyway.
-        sel = jnp.take(reference.astype(jnp.float32),
-                       jnp.clip(besti.reshape(-1), 0, nr - 1), axis=0)
-        diff = query.astype(jnp.float32)[:, None, :] - \
-            sel.reshape(nq, k, 3)
-        d2 = jnp.sum(diff * diff, axis=-1)                      # [NQ, k]
-    hit = (bestd > (HIT_FLOOR_BAKED if baked else NEG_BIG)) \
-        & query_mask[:, None]
-    d2 = jnp.where(hit, d2, jnp.inf)
-    besti = jnp.where(hit, besti, 0)
-    if k > 1:
-        # The running buffers are unordered; present ascending by distance
-        # (brute-force top_k parity). [NQ, k] sorts are trivial.
-        order = jnp.argsort(d2, axis=1)
-        d2 = jnp.take_along_axis(d2, order, axis=1)
-        besti = jnp.take_along_axis(besti, order, axis=1)
-    return Matches(dists2=d2, ids=besti)
+    # Combine the splits; argmin takes the first split on ties, which is
+    # the lower reference index.
+    d = d.reshape(n_splits, nqp)[:, :nq]
+    ids = ids.reshape(n_splits, nqp)[:, :nq]
+    best = jnp.argmin(d, axis=0)
+    d = jnp.take_along_axis(d, best[None], axis=0)[0]
+    ids = jnp.take_along_axis(ids, best[None], axis=0)[0]
+    hit = query_mask & jnp.isfinite(d)
+    d = jnp.where(hit, d, jnp.inf)[:, None]
+    ids = jnp.where(hit, ids, 0)[:, None]
+    return Matches(dists2=d, ids=ids)

@@ -1,7 +1,7 @@
 """Rigid-transform error minimizers + the three introspection products the
 framework depends on (overlap, covariance, residual error).
 
-TPU-native analog of libpointmatcher's ``ErrorMinimizer`` family. Reference
+Analog of libpointmatcher's ``ErrorMinimizer`` family. Reference
 behavior pins (SURVEY.md §2b N5):
 
 * ``getCovariance()``        — 6x6 measurement covariance fed into the pose
@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .. import se3
+from ..utils.pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class ErrorElements:
     """Matched point pairs with weights (k=1 matches, flattened)."""
 

@@ -1,6 +1,6 @@
 """Outlier filters: per-match weights in [0, 1].
 
-TPU-native analog of libpointmatcher's ``OutlierFilters``
+Analog of libpointmatcher's ``OutlierFilters``
 (``outlierFilters.compute(reading, reference, matches)``, reference call
 sites ``Localizer.hpp:330`` and ``LoopCloser.hpp:360``). The weights feed
 both the error minimizer and the overlap statistic

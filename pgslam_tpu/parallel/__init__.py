@@ -1,7 +1,7 @@
 """Multi-device scaling layer.
 
 The reference's only parallelism is three host threads over one mutex
-(SURVEY.md §2c). The TPU-native scaling axes are:
+(SURVEY.md §2c). The device scaling axes are:
 
 * **dp (agents)** — batch whole registrations / SLAM instances across
   devices via ``vmap`` + sharding (:mod:`batched`).

@@ -8,7 +8,6 @@ agent's registration is independent). One dispatch registers B scans.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 
@@ -16,68 +15,16 @@ from ..cloud import Cloud
 from ..ops.icp import ICPConfig, ICPResult, icp_core
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "use_fused"))
-def _batched_register_impl(readings: Cloud, references: Cloud,
-                           T_inits: jax.Array, cfg: ICPConfig,
-                           use_fused: bool) -> ICPResult:
-    from ..ops.icp_pallas import fused_icp_register
-    if use_fused:
-        return fused_icp_register(readings, references, T_inits, cfg)
-    return jax.vmap(lambda r, m, t: icp_core(r, m, t, cfg))(
-        readings, references, T_inits)
-
-
+@functools.partial(jax.jit, static_argnames=("cfg",))
 def batched_register(readings: Cloud, references: Cloud,
                      T_inits: jax.Array,
-                     cfg: ICPConfig = ICPConfig(),
-                     fused: str = "auto",
-                     prepped_ref=None) -> ICPResult:
+                     cfg: ICPConfig = ICPConfig()) -> ICPResult:
     """Register a batch: readings/references carry a leading agent axis
     ``[B, N, ...]``; ``T_inits`` is ``[B, 4, 4]``. Returns a batched
-    :class:`ICPResult`.
-
-    ``fused`` ("auto" | "on" | "off"): on TPU, configs the fused
-    whole-ICP kernel covers (:func:`ops.icp_pallas.fused_eligible`)
-    dispatch ONE kernel for the whole batch (grid = agents) instead of
-    the vmapped XLA loop — chip-measured ~2.5x at the flagship profile.
-    Under vmap every agent otherwise runs the full ``lax.while_loop``
-    (lanes that converge early idle until all do).
-
-    ``PGSLAM_FUSED_BATCHED`` (env, mirrors ``PGSLAM_FUSED_SINGLE``):
-    "1" opts the kernel in (for eligible configs — see below), "0"
-    forces the vmapped XLA loop, unset keeps "auto" — the escape hatch
-    for the auto-route's bit-wise numeric change (MIGRATION.md).
-
-    Eligibility is NEVER bypassed: the kernel only implements the
-    TrimmedDist/MaxDist outlier filters and needs precomputed reference
-    normals for point-to-plane, so ``fused="on"`` (or the env "1") on an
-    ineligible config would silently drop filters / register against
-    zero normals. Both opt-ins are ANDed with ``fused_eligible`` and the
-    normals check, exactly like the single-stream gate
-    (``localizer.py``).
-
-    ``prepped_ref``: a :class:`ops.icp_pallas.FusedRef` built once from
-    ``references`` via ``prepare_fused_reference`` (setMap semantics).
-    When the fused route is taken it skips the per-call reference
-    operand build (three [B, 32, NR]-scale constructions); ignored on
-    the XLA fallback route, which registers against ``references``
-    directly. The caller must keep it in sync with ``references``."""
-    env = os.environ.get("PGSLAM_FUSED_BATCHED", "")
-    if fused == "auto" and env in ("0", "1"):
-        fused = "on" if env == "1" else "off"
-    from ..ops.icp_pallas import fused_eligible
-    eligible = (fused_eligible(cfg)
-                and (cfg.error != "point_to_plane"
-                     or "normals" in references.descriptors))
-    use_fused = eligible and (
-        fused == "on"
-        or (fused == "auto" and jax.default_backend() not in ("cpu",)))
-    if use_fused and prepped_ref is not None:
-        from ..ops.icp_pallas import fused_icp_register_prepped
-        return fused_icp_register_prepped(readings, prepped_ref, T_inits,
-                                          cfg)
-    return _batched_register_impl(readings, references, T_inits, cfg,
-                                  use_fused)
+    :class:`ICPResult`. One dispatch runs the vmapped ICP loop; agents
+    that converge early idle until the last one does."""
+    return jax.vmap(lambda r, m, t: icp_core(r, m, t, cfg))(
+        readings, references, T_inits)
 
 
 def shard_batch(mesh: jax.sharding.Mesh, axis: str = "dp"):

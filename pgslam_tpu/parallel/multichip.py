@@ -12,8 +12,8 @@ The pose-graph optimization runs jitted over the same mesh with
 replicated poses (graphs are small; its parallelism is the batched 6x6
 block math, not sharding).
 
-This module backs ``__graft_entry__.dryrun_multichip`` and scales to a
-real v5e mesh unchanged: collectives ride ICI via the mesh axes.
+This module backs ``__graft_entry__.dryrun_multichip`` and the
+four-card phase of ``chip_smoke.py``; the collectives go to NCCL.
 """
 
 from __future__ import annotations
@@ -57,8 +57,7 @@ def sharded_icp_step(mesh: Mesh, cfg: ICPConfig, merge: str = "all_gather"):
     ``merge``: how per-shard candidates combine across the point axis —
     ``"all_gather"`` (one collective of the tiny [N, k] candidate sets) or
     ``"ring"`` (ppermute the reading + running best around the tp ring,
-    the ring-attention-style pass; same result, nearest-neighbor-only ICI
-    traffic).
+    the ring-attention-style pass; same result, neighbour-only traffic).
     """
     from jax import shard_map
 
@@ -137,38 +136,16 @@ def sharded_icp_step(mesh: Mesh, cfg: ICPConfig, merge: str = "all_gather"):
     return jax.jit(step)
 
 
-def make_mesh(n_devices: int, tp: int = 2, slices: int = 1) -> Mesh:
-    """(dp, tp) device mesh for the sharded registration paths.
-
-    ``slices > 1`` models a multi-slice fleet (slices joined by DCN, chips
-    within a slice by ICI — SURVEY.md §5.8): devices are grouped into
-    ``slices`` contiguous blocks of ``n_devices // slices`` chips (JAX
-    enumerates devices slice-major, so block = slice on real multi-slice
-    topologies). The ``tp`` axis carries the per-ICP-iteration
-    ``all_gather`` — the latency-critical collective — so every tp group
-    must sit INSIDE one slice and ride ICI; this factory enforces that by
-    requiring ``tp`` to divide the per-slice chip count. The ``dp`` axis
-    then spans slice boundaries, which is free during registration (pure
-    data parallelism, no dp collectives) — only the host-side pose-graph
-    merge crosses slices, once per batch step.
-    """
+def make_mesh(n_devices: int, tp: int = 2) -> Mesh:
+    """(dp, tp) device mesh for the sharded registration paths: the first
+    ``n_devices`` devices, ``tp`` consecutive devices per reference-shard
+    group. The cards of one host reach each other at the same rate, so
+    the layout follows the algorithm alone."""
     tp = min(tp, n_devices)
-    if slices < 1 or n_devices % slices:
-        raise ValueError(f"slices={slices} must divide n_devices"
-                         f"={n_devices}")
-    per_slice = n_devices // slices
-    if slices > 1 and per_slice % tp:
-        raise ValueError(
-            f"tp={tp} must divide the per-slice chip count {per_slice}: a "
-            f"tp group crossing a slice boundary would put the "
-            f"per-iteration all_gather on DCN instead of ICI")
-    dp = n_devices // tp
-    devices = np.empty((dp, tp), dtype=object)
-    flat = jax.devices()[:dp * tp]
-    for i in range(dp):
-        for j in range(tp):
-            devices[i, j] = flat[i * tp + j]
-    return Mesh(devices, ("dp", "tp"))
+    if n_devices % tp:
+        raise ValueError(f"tp={tp} must divide n_devices={n_devices}")
+    devices = np.array(jax.devices()[:n_devices], dtype=object)
+    return Mesh(devices.reshape(n_devices // tp, tp), ("dp", "tp"))
 
 
 def multichip_slam_step(mesh: Mesh, cfg: ICPConfig,

@@ -1,6 +1,6 @@
 """Full ICP registration sharded over a (dp, tp) device mesh.
 
-This is the production multi-chip registration path: the fleet batch axis
+This is the production multi-device registration path: the fleet batch axis
 shards over ``dp`` (data parallelism over agents) and each agent's
 *reference* cloud shards over ``tp`` along its point axis (tensor
 parallelism over the long axis — the correspondence search is the
@@ -34,6 +34,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from .. import se3
 from ..cloud import Cloud
+from ..ops import knn_pallas as knn_kernel
 from ..ops import minimizer as M
 from ..ops import outlier as O
 from ..ops.icp import ICPConfig, ICPResult
@@ -82,27 +83,19 @@ def make_sharded_register(mesh: Mesh, cfg: ICPConfig):
         my = jax.lax.axis_index("tp")
         dtype = r_pts.dtype
 
-        use_pallas = (cfg.matcher == "pallas"
-                      and jax.default_backend() != "cpu")
+        use_kernel = (cfg.matcher == "pallas"
+                      and knn_kernel.use_kernel(jax.default_backend()))
 
         def local_match(q, qm, fp, fm):
-            mt = knn_brute_force(q, qm, fp, fm, k=k,
-                                 tile_ref=min(cfg.tile_ref, m_local))
+            if use_kernel:
+                mt = knn_kernel.nn_pallas(q, qm, fp, fm, k=k)
+            else:
+                mt = knn_brute_force(q, qm, fp, fm, k=k,
+                                     tile_ref=min(cfg.tile_ref, m_local))
             cand_p = fp[mt.ids]                              # [N, k, 3]
             return mt.dists2, mt.ids, cand_p
 
         def match_local_batch(pts):
-            if use_pallas:
-                # Per-agent fused kernel calls (b is static and small);
-                # semantics identical to the brute path.
-                from ..ops.knn_pallas import nn_pallas
-                outs = [nn_pallas(pts[i], r_mask[i], f_pts[i], f_mask[i],
-                                  k=k, precision=cfg.pallas_precision)
-                        for i in range(b)]
-                d2 = jnp.stack([o.dists2 for o in outs])
-                ids = jnp.stack([o.ids for o in outs])
-                cand_p = jax.vmap(lambda fp, i: fp[i])(f_pts, ids)
-                return d2, ids, cand_p
             return jax.vmap(local_match)(pts, r_mask, f_pts, f_mask)
 
         def mg(pts):

@@ -19,7 +19,7 @@ discipline:
   design race (SURVEY.md §3.3), reproduced rather than "fixed".
 
 Device work happens inside jitted calls which release the GIL, so Python
-threads genuinely overlap host bookkeeping with TPU compute.
+threads genuinely overlap host bookkeeping with device compute.
 """
 
 from __future__ import annotations

@@ -233,8 +233,7 @@ def normalize_rotation(T: jax.Array) -> jax.Array:
 
     Handles arbitrarily bad R (reflections excepted). For the common
     near-orthonormal case prefer :func:`normalize_rotation_fast`: tiny
-    batched SVDs lower to serialized loops on TPU (same failure class as
-    batched ``linalg.inv`` — see CLAUDE.md)."""
+    batched SVDs lower to serialized loops."""
     R = T[..., :3, :3]
     U, _, Vt = jnp.linalg.svd(R)
     det = jnp.linalg.det(U @ Vt)
@@ -248,7 +247,7 @@ def normalize_rotation(T: jax.Array) -> jax.Array:
 def normalize_rotation_fast(T: jax.Array, iterations: int = 2) -> jax.Array:
     """Drift control for NEAR-orthonormal rotations via the Newton-Schulz
     polar iteration ``R <- R (3I - R^T R) / 2`` — batched 3x3 matmuls
-    only (TPU-vectorizable; no serialized SVD loops). Quadratic
+    only (no serialized SVD loops). Quadratic
     convergence to the polar factor: drift 1e-3 -> ~1e-9 in two
     iterations. NOT safe for arbitrary R (diverges past ||R^T R - I|| ~
     1); PGO retractions come out of ``exp`` so they qualify."""

@@ -2,9 +2,8 @@
 
 The reference is templated over the scalar type and its only test
 instantiates BOTH `PoseGraphSlam<float>` and `PoseGraphSlam<double>`
-(/root/reference/src/pgslam/PoseGraphSlam.h:67-68,
-/root/reference/tests/instantiation.cpp:4-20). The TPU framework is
-fp32-first on the device path (PARITY.md "Precision"), but the core
+(src/pgslam/PoseGraphSlam.h:67-68, tests/instantiation.cpp:4-20 in the
+reference). This framework is fp32-first on the device path (PARITY.md "Precision"), but the core
 numerics (se3, exact-matcher ICP, XLA-path PGO) are dtype-generic: this
 script instantiates them in fp64 on the CPU backend and checks they
 converge to fp64-level accuracy. Run standalone or via
@@ -20,13 +19,15 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_ENABLE_X64"] = "1"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+from pgslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
+from pgslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 import numpy as np  # noqa: E402
 
 from golden_replay import (FIXTURE, FIXTURE_64K, FIXTURE_LONG,  # noqa: E402

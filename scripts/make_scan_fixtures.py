@@ -22,6 +22,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
+from pgslam_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 import numpy as np  # noqa: E402
 
 from pgslam_tpu.datasets import (corridor_world, render_scan,  # noqa: E402

@@ -1,4 +1,4 @@
-"""Shared definition of the golden-replay sequence (VERDICT r2 item 6).
+"""Shared definition of the golden-replay sequence.
 
 One canonical corridor-style loop sequence + SLAM config, used by
 ``scripts/make_golden_replay.py`` (records the single-threaded facade's
@@ -69,7 +69,7 @@ def run_st_replay():
     return per_scan, trajectory, stats["n_loops"]
 
 
-# ---- long fixture (VERDICT r3 item 3) -------------------------------------
+# ---- long fixture ---------------------------------------------------------
 # 300 scans over a 3-petal clover: every petal return to the shared
 # center is a distinct far-in-topology revisit, so ONE deterministic
 # sequence pins >=3 accepted closures, >=3 post-optimization re-anchors,

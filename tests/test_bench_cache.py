@@ -1,18 +1,18 @@
 """Fixture-cache machinery of the driver-facing bench.py.
 
-The cache (stage A packets / stage B prepped references) exists so chip
-sessions start at the timed phases — see bench.py's cache block. These
+The cache (stage A packets / stage B prepped references) exists so runs
+start at the timed phases — see bench.py's cache block. These
 tests pin the two surfaces that could silently corrupt a benchmark:
 
 1. ``_np_se3_exp`` — the pure-numpy SE(3) exp that stamps fixture
-   ground-truth offsets (host-only so fixture generation never rides a
-   relay round-trip). If it drifts from the package's ``se3.exp``, every
+   ground-truth offsets (host-only, so fixture generation needs no
+   device round-trip). If it drifts from the package's ``se3.exp``, every
    cached error quantile is wrong while looking plausible.
 2. ``_save_npz`` / ``_load_npz`` — atomicity and the fail-soft
    regeneration contract (unreadable/missing cache returns None, never
    raises into the bench).
 
-No rendering, no chip — full-shape generation is covered by the smoke
+No rendering, no device — full-shape generation is covered by the smoke
 bench run (PGSLAM_BENCH_SMOKE=1 python bench.py).
 """
 

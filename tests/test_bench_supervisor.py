@@ -1,11 +1,8 @@
 """Supervisor fail-soft behavior of the driver-facing bench.py.
 
 The driver runs ``python bench.py`` and records the single stdout JSON
-line; a zeroed line costs the round its headline evidence. These tests
-pin the salvage protocol added after a chip session (2026-08-19) where
-the child MEASURED the pipeline number but both supervisor attempts hit
-their wall-clock caps during aux phases and the old supervisor reported
-``value: 0.0``: the child checkpoints each measured phase to stdout,
+line; a zeroed line loses a measured number. These tests pin the
+salvage protocol: the child checkpoints each measured phase to stdout,
 and the supervisor ships the best checkpoint from a timed-out or
 crashed attempt instead of zero.
 
@@ -24,9 +21,8 @@ import bench
 
 def _run_main(monkeypatch_run, capsys):
     with mock.patch.object(subprocess, "run", side_effect=monkeypatch_run):
-        # retry_sleep_s=0: the 5 s inter-attempt backoff is real chip
-        # etiquette, not something the mocked tests should sleep through
-        # (ADVICE r3: the two double-attempt tests each slept 5 s).
+        # retry_sleep_s=0: the mocked tests need not sleep through the
+        # 5 s inter-attempt backoff.
         bench.main(total_budget_s=560.0, retry_sleep_s=0.0)
     lines = [ln for ln in capsys.readouterr().out.strip().splitlines()
              if ln.strip()]
@@ -69,7 +65,7 @@ def test_timeout_after_batched_checkpoint_ships_the_measured_number(capsys):
     assert out["truncated_after"] == "batched_pipeline"
     assert "attempt0_timeout" in out["attempt_errors"]
     # The headline was measured — the supervisor must NOT burn the
-    # remaining budget re-claiming the chip for a second attempt.
+    # remaining budget on a second attempt.
     assert len(calls) == 1
 
 
@@ -116,11 +112,11 @@ def test_no_output_at_all_yields_zero_error_line(capsys):
 
     out = _run_main(fake_run, capsys)
     assert out["value"] == 0.0
-    assert "tpu_unavailable" in out["error"]
+    assert "bench_failed" in out["error"]
 
 
 def test_timeout_with_final_line_ships_it_clean(capsys):
-    """ADVICE r3: a child that printed its FINAL line but hung before
+    """A child that printed its FINAL line but hung before
     exiting is a complete run — ship it unchanged (same as the clean
     path), never as a 'truncated_after: final' checkpoint."""
     final = {"metric": bench.METRIC, "value": 2900.0,
@@ -140,9 +136,8 @@ def test_timeout_with_final_line_ships_it_clean(capsys):
 
 
 def test_crash_after_batched_checkpoint_does_not_retry(capsys):
-    """ADVICE r3: the rc!=0 path gets the same early-exit as the timeout
-    path — once the batched headline is in hand, a retry only risks
-    wedging the shared TPU pool."""
+    """The rc!=0 path gets the same early-exit as the timeout path —
+    once the batched headline is in hand, a retry gains nothing."""
     stdout = (_ckpt(395.0, "single_stream") + b"\n"
               + _ckpt(3105.5, "batched_pipeline") + b"\n")
     calls = []
@@ -158,7 +153,7 @@ def test_crash_after_batched_checkpoint_does_not_retry(capsys):
 
 
 def test_salvaged_lower_value_never_overrides_higher_checkpoint(capsys):
-    """ADVICE r3: best-checkpoint selection is by VALUE across attempts;
+    """Best-checkpoint selection is by VALUE across attempts;
     a later lower-valued salvage must not clobber an earlier higher one."""
     seq = [_timeout(_ckpt(2800.0, "batched_pipeline") + b"\n")]
     # (the batched checkpoint triggers the early-exit, single attempt)

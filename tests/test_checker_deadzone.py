@@ -1,4 +1,4 @@
-"""Convergence-checker dead-zone guard (VERDICT r3 weak #3 / item 4).
+"""Convergence-checker dead-zone guard.
 
 The differential checker smooths the last ``smooth_length`` deltas over
 an inf-initialized window, so ``converged`` is unreachable before the
@@ -44,7 +44,7 @@ def test_dead_zone_detection():
     assert eps_dead_zone(ICPConfig(max_iterations=10, trans_eps=0.0)) \
         is not None
     # Equality is margin 0 — reachable on the final iteration, so it is
-    # NOT a structural dead zone (ADVICE r4: the off-by-one).
+    # NOT a structural dead zone (the off-by-one).
     eq = ICPConfig(max_iterations=4, smooth_length=4)
     assert eps_dead_zone(eq) is None
     assert eps_margin(eq) == 0

@@ -128,7 +128,7 @@ def test_voxel_grid_subsamples(rng):
 
 
 def test_voxel_grid_sort_matches_scatter(rng):
-    # The sort-dedup backend (TPU default — XLA scatters serialize there)
+    # The sort-dedup backend (for backends where scatters serialize)
     # must produce the bit-identical keep mask to the scatter-min race,
     # including invalid-point handling and hash collisions.
     import jax.numpy as jnp

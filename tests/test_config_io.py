@@ -32,8 +32,8 @@ def test_parse_icp_yaml():
     assert cfg.outlier == (O.TrimmedDist(0.8), O.MaxDist(2.0))
     assert cfg.reading_filters == (F.RandomSampling(0.5),)
     assert cfg.reference_filters == (F.SurfaceNormal(knn=10),)
-    # KDTreeMatcher maps to the fused Pallas exact-kNN (TPU-native
-    # kd-tree equivalent; brute fallback on the CPU backend).
+    # KDTreeMatcher maps to the exact-kNN matcher kernel (brute force
+    # on the CPU backend).
     assert cfg.matcher == "pallas" and cfg.knn == 1
     # Frozen dataclass -> hashable -> usable as a jit static arg.
     hash(cfg)

@@ -1,6 +1,6 @@
 """Double-precision instantiation, mirroring the reference's dual
 `PoseGraphSlam<float>` / `PoseGraphSlam<double>` instantiation test
-(/root/reference/tests/instantiation.cpp:4-20).
+(reference tests/instantiation.cpp:4-20).
 
 jax_enable_x64 is process-global, so the fp64 drive runs in a fresh
 subprocess (scripts/fp64_instantiation.py) to keep this test process

@@ -1,4 +1,4 @@
-"""Golden-replay parity (VERDICT r2 item 6): every execution path must
+"""Golden-replay parity: every execution path must
 reproduce the committed single-threaded-facade trajectory.
 
 The fixture (tests/fixtures/golden_replay.npz, written by
@@ -133,8 +133,7 @@ def test_mt_batched_sharded_match_golden(golden):
 
 @pytest.mark.slow
 def test_mt_per_scan_matches_golden(golden):
-    """MT facade pinned PER SCAN (VERDICT r3 item 3 — the r3 pin was
-    final-pose-only). The pipeline is driven lockstep (wait_idle after
+    """MT facade pinned PER SCAN (not just the final pose). The pipeline is driven lockstep (wait_idle after
     every scan) so worker scheduling cannot reorder work; the ±1-scan
     window stays because the MT localizer applies optimization
     writebacks via the deferred outdated-flag (LocalizerMT.hpp:122-134)
@@ -171,7 +170,7 @@ def _truth_errs(per_scan, truth, lag=0):
 
 
 def test_deferred_lag0_bitwise_matches_classic(golden):
-    """VERDICT r4 item 5: the deferred machinery run at lag 0
+    """The deferred machinery run at lag 0
     (``force_deferred`` with ``sync_lag=0`` — dispatch + immediate
     commit, empty pipeline throughout) must be BIT-IDENTICAL to the
     classic per-scan-sync path, per scan. Fresh dispatches take the
@@ -200,7 +199,7 @@ def test_deferred_lag0_bitwise_matches_classic(golden):
 
 
 def test_deferred_verification_matches_golden(golden):
-    """LoopCloser.deferred_verification (r5, VERDICT r4 item 4): the
+    """LoopCloser.deferred_verification: the
     spawn-time verification dispatch commits one scan later (riding the
     next scan's window). Same staleness class as the MT variant's
     unlocked verification — the closure lands one scan later, so the pin
@@ -230,9 +229,8 @@ def test_deferred_verification_matches_golden(golden):
 
 
 def test_streaming_micro_batch_matches_golden(golden):
-    """LocalizerConfig.micro_batch (r5, VERDICT r4 item 8 — the
-    streaming mode): scans register in fused micro-batches with a
-    commit lag of up to micro_batch scans. Decisions quantize to batch
+    """LocalizerConfig.micro_batch (the streaming mode): scans register
+    in fused micro-batches with a commit lag of up to micro_batch scans. Decisions quantize to batch
     boundaries, so the pins are the sync_lag envelope style: closures
     fire, tracking quality vs truth stays within golden's envelope
     scaled by the longer dead-reckoning segments, and the corrected
@@ -298,7 +296,7 @@ def test_deferred_matches_golden(golden):
         assert stats["n_loops"] >= 1
 
 
-# ---- long fixture (300 scans, >=3 closures — VERDICT r3 item 3) -----------
+# ---- long fixture (300 scans, >=3 closures) ------------------------------
 
 @pytest.fixture(scope="module")
 def golden_long():
@@ -375,7 +373,7 @@ def test_deferred_long_matches_golden(golden_long):
     assert stats["opt_runs"] >= 3
 
 
-# ---- 64k-scale fixture (slow tier — VERDICT r3 item 3) ---------------------
+# ---- 64k-scale fixture (slow tier) -----------------------------------------
 
 @pytest.mark.slow
 def test_st_64k_matches_golden():

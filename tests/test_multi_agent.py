@@ -39,7 +39,7 @@ def test_two_agents_share_graph():
 
 
 def test_prewarm_then_run_matches_cold():
-    """Bring-up trace pre-warm (VERDICT r4 item 6) must be a pure
+    """Bring-up trace pre-warm must be a pure
     warm-up: identical trajectories to a cold fleet, and no leakage of
     its throwaway graphs into the real one."""
     rng = np.random.default_rng(7)
@@ -80,8 +80,8 @@ def test_agents_with_first_scans_only():
 def test_multi_agent_on_tp_mesh():
     """Fleet SLAM on the (dp, tp) mesh: the FULL registration runs through
     parallel/sharded_icp.py (dp over agents, tp over reference points)
-    with identical front-end semantics (VERDICT r1 item 6: the tp ring
-    serves real SLAM, not a synthetic step)."""
+    with identical front-end semantics (the tp ring serves real SLAM,
+    not a synthetic step)."""
     from pgslam_tpu.parallel.multichip import make_mesh
 
     rng = np.random.default_rng(7)

@@ -195,8 +195,8 @@ def test_int16_cloud_through_slam_facade(tmp_path):
 def test_native_scan_loader_skips_pathological_scans(tmp_path):
     """A scan whose points are ALL dropped by the int16 envelope (or a
     truncated file) must not truncate the stream: the iterator skips it
-    and the remaining scans are still served (ADVICE r4 — end-of-stream
-    is the distinct -3 code, not n==0)."""
+    and the remaining scans are still served (end-of-stream is the
+    distinct -3 code, not n==0)."""
     from pgslam_tpu.datasets import save_kitti_bin
     from pgslam_tpu.native import ScanLoader, native_available
     if not native_available():
@@ -222,7 +222,7 @@ def test_native_scan_loader_skips_pathological_scans(tmp_path):
 def test_native_scan_loader_quantize_flag_required(tmp_path):
     """sl_next_q on a loader opened without quantize is a hard error —
     the IO thread never built the int16 copy (the f32 path no longer
-    pays the conversion; ADVICE r4)."""
+    pays the conversion)."""
     from pgslam_tpu.datasets import save_kitti_bin
     from pgslam_tpu.native import ScanLoader, native_available
     if not native_available():

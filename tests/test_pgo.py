@@ -1,5 +1,6 @@
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pgslam_tpu import se3
 from pgslam_tpu.optim.pgo import PGOConfig, optimize_pose_graph
@@ -176,3 +177,120 @@ def test_pose_marginals_chain_uncertainty_grows():
     assert np.all(tr_bd[1:-1] <= tr[1:-1] + 1e-9)
     # symmetric SPD blocks
     np.testing.assert_allclose(dense, np.swapaxes(dense, 1, 2), atol=1e-7)
+
+
+def _ring_problem(V, n_loops, rng, noise=0.02):
+    """V poses on a circle: odometry chain plus ``n_loops`` closures with
+    noisy measurements, and a perturbed initial guess."""
+    true = []
+    for i in range(V):
+        a = 2 * np.pi * i / V
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = np.asarray(se3.exp_so3(jnp.asarray([0.0, 0.0, a],
+                                                       jnp.float32)))
+        T[:3, 3] = [10 * np.cos(a), 10 * np.sin(a), 0.1 * np.sin(3 * a)]
+        true.append(T)
+    cov = (np.eye(6) * 0.01).astype(np.float32)
+    pairs = [(i, i + 1) for i in range(V - 1)]
+    pairs += [tuple(sorted(rng.choice(V, 2, replace=False)))
+              for _ in range(n_loops)]
+    edges = []
+    for i, j in pairs:
+        tw = (rng.normal(size=6) * noise).astype(np.float32)
+        Z = relpose(true[i], true[j]) @ np.asarray(se3.exp(jnp.asarray(tw)))
+        edges.append((i, j, Z.astype(np.float32), cov))
+    init = [true[0]] + [
+        (t @ np.asarray(se3.exp(jnp.asarray(
+            (rng.normal(size=6) * 0.05).astype(np.float32))))).astype(
+                np.float32) for t in true[1:]]
+    return true, init, edges
+
+
+@pytest.mark.parametrize("V", [64, 500, 1024])
+def test_segment_sum_matches_incidence_assembly(V):
+    # "auto" assembles with segment_sum on every platform; the one-hot
+    # incidence matmuls are an explicit option and must solve the same
+    # problem (summation order differs, so not bitwise).
+    rng = np.random.default_rng(V)
+    _, init, edges = _ring_problem(V, V // 16, rng)
+    args = make_problem(init, edges)
+    kw = dict(max_iterations=4, cg_iterations=30)
+    out_s, st_s = optimize_pose_graph(*args, config=PGOConfig(**kw))
+    out_i, st_i = optimize_pose_graph(
+        *args, config=PGOConfig(assembly="incidence", **kw))
+    np.testing.assert_allclose(np.asarray(out_s), np.asarray(out_i),
+                               atol=2e-4)
+    np.testing.assert_allclose(float(st_s["final_cost"]),
+                               float(st_i["final_cost"]), rtol=1e-3)
+
+
+@pytest.mark.parametrize("assembly", ["scatter", "onehot"])
+def test_unknown_assembly_rejected(assembly):
+    rng = np.random.default_rng(0)
+    _, init, edges = _ring_problem(8, 1, rng)
+    with pytest.raises(ValueError, match="assembly"):
+        optimize_pose_graph(*make_problem(init, edges),
+                            config=PGOConfig(assembly=assembly))
+
+
+def _gauss_newton_f64(init, edges, prior_sigma=1e-6, iters=8):
+    """Dense float64 Gauss-Newton on the same cost as optimize_pose_graph
+    (e = Log(Z^-1 Xf^-1 Xt), right perturbations, anchor prior on vertex
+    0), with central-difference Jacobians and scipy's expm/logm."""
+    from scipy.linalg import expm, logm
+
+    def hat6(x):
+        M = np.zeros((4, 4))
+        v, w = x[:3], x[3:]
+        M[:3, :3] = [[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]
+        M[:3, 3] = v
+        return M
+
+    def vee6(M):
+        M = np.real(M)
+        return np.array([M[0, 3], M[1, 3], M[2, 3],
+                         M[2, 1], M[0, 2], M[1, 0]])
+
+    X = [np.asarray(T, np.float64) for T in init]
+    P0inv = np.linalg.inv(X[0])
+    Ls = [np.linalg.cholesky(np.linalg.inv(np.asarray(c, np.float64))).T
+          for (_, _, _, c) in edges]
+    Zinv = [np.linalg.inv(np.asarray(Z, np.float64)) for (_, _, Z, _) in edges]
+
+    def residual(Xs):
+        r = [L @ vee6(logm(Zi @ np.linalg.inv(Xs[i]) @ Xs[j]))
+             for L, Zi, (i, j, _, _) in zip(Ls, Zinv, edges)]
+        r.append(vee6(logm(P0inv @ Xs[0])) / prior_sigma)
+        return np.concatenate(r)
+
+    n = len(X)
+    for _ in range(iters):
+        r0 = residual(X)
+        J = np.zeros((len(r0), 6 * n))
+        h = 1e-6
+        for k in range(6 * n):
+            d = np.zeros(6)
+            d[k % 6] = h
+            Xp = list(X)
+            Xm = list(X)
+            Xp[k // 6] = X[k // 6] @ expm(hat6(d))
+            Xm[k // 6] = X[k // 6] @ expm(hat6(-d))
+            J[:, k] = (residual(Xp) - residual(Xm)) / (2 * h)
+        delta = np.linalg.lstsq(J, -r0, rcond=None)[0]
+        X = [X[i] @ expm(hat6(delta[6 * i:6 * i + 6])) for i in range(n)]
+        if np.linalg.norm(delta) < 1e-9:
+            break
+    return np.stack(X)
+
+
+def test_optimize_matches_float64_gauss_newton():
+    rng = np.random.default_rng(3)
+    _, init, edges = _ring_problem(6, 2, rng, noise=0.05)
+    out, _ = optimize_pose_graph(
+        *make_problem(init, edges),
+        config=PGOConfig(cg_iterations=200, cg_tol=1e-12))
+    ref = _gauss_newton_f64(init, edges)
+    np.testing.assert_allclose(np.asarray(out)[:, :3, 3], ref[:, :3, 3],
+                               atol=2e-3)
+    np.testing.assert_allclose(np.asarray(out)[:, :3, :3], ref[:, :3, :3],
+                               atol=2e-4)

@@ -1,5 +1,5 @@
-"""Device-resident pose-graph mirror (optim/resident.py, VERDICT r4
-item 1): the production optimize path keeps the padded graph arrays on
+"""Device-resident pose-graph mirror (optim/resident.py): the
+production optimize path keeps the padded graph arrays on
 device and uploads only deltas. These tests pin
 
 * bit-identical results vs the classic full-rebuild path over multi-call
@@ -10,15 +10,12 @@ device and uploads only deltas. These tests pin
   interleave guard,
 * the packed-writeback formats (exact12 bit-exact round-trip; quat7
   within float tolerance),
-* the incremental sorted-RANGES lane routing against a from-scratch
-  ``host_route_ranges`` (slow tier: the interpret-mode kernel trace is
-  expensive, the routing check itself is pure numpy).
+* the fail-soft fallback to the classic path, and its counter.
 """
 
 import dataclasses
 
 import numpy as np
-import pytest
 
 from pgslam_tpu.cloud import make_cloud
 from pgslam_tpu.graph.pose_graph import MapManager
@@ -179,11 +176,13 @@ def test_mt_interleave_invalidates():
 
 
 def test_resident_failure_falls_back_to_classic(monkeypatch):
-    """A fused-tier failure inside the resident execute (r5 chip case:
-    scoped-VMEM OOM at a bucket-growth shape) must invalidate the mirror
+    """A failure inside the resident execute must invalidate the mirror
     and run the batch through the classic path — never crash the SLAM
-    loop — and the NEXT optimize rebuilds a fresh mirror."""
+    loop — count the fallback, and the NEXT optimize rebuilds a fresh
+    mirror."""
     from pgslam_tpu.optim import resident
+    from pgslam_tpu.utils import counters
+    before = counters["optimizer/resident_fallbacks"]
 
     rng = np.random.default_rng(5)
     mm = MapManager()
@@ -196,7 +195,7 @@ def test_resident_failure_falls_back_to_classic(monkeypatch):
     def flaky(self, prep):
         calls["n"] += 1
         if calls["n"] == 1:
-            raise RuntimeError("synthetic scoped-vmem OOM")
+            raise RuntimeError("synthetic device failure")
         return orig(self, prep)
 
     monkeypatch.setattr(resident.ResidentPGO, "execute", flaky)
@@ -204,6 +203,7 @@ def test_resident_failure_falls_back_to_classic(monkeypatch):
                      np.eye(6, dtype=np.float32) * 0.01)   # classic fallback
     assert opt.last_stats is not None
     assert opt._mirror._st is None            # invalidated
+    assert counters["optimizer/resident_fallbacks"] == before + 1
     opt.add_new_data(1, 18, _closure(poses, 1, 18),
                      np.eye(6, dtype=np.float32) * 0.01)   # mirror rebuilds
     assert opt._mirror._st is not None
@@ -237,155 +237,6 @@ def test_quat7_pack_roundtrip():
     p12 = np.asarray(_pack_poses(jnp.asarray(T), "exact12"))
     np.testing.assert_array_equal(_unpack_poses_host(p12, 32, "exact12"),
                                   T)
-
-
-def test_incremental_ranges_routing_matches_full():
-    """Pure-numpy pin: appending edges through the mirror's incremental
-    router lands every lane/panel entry exactly where a from-scratch
-    ``host_route_ranges`` of the final edge set puts it (lane assignment
-    is append-stable by construction)."""
-    from pgslam_tpu.optim.lm_pallas import (RangesPlan, _host_claim,
-                                            host_route_ranges)
-    from pgslam_tpu.optim.resident import ResidentPGO
-
-    rng = np.random.default_rng(4)
-    V = 512
-    plan = RangesPlan(s=128, trips=4, capF=128, capT=128)
-    # base: odometry chain + some loops
-    ef = list(range(V - 1))
-    et = list(range(1, V))
-    n_loop0 = 40
-    for _ in range(n_loop0):
-        a = int(rng.integers(0, V - 2))
-        b = int(rng.integers(a + 2, V))
-        ef.append(a)
-        et.append(b)
-    E = 1024
-
-    def padded(efl, etl):
-        e_f = np.zeros(E, np.int64)
-        e_t = np.zeros(E, np.int64)
-        e_f[:len(efl)] = efl
-        e_t[:len(etl)] = etl
-        em = np.zeros(E, bool)
-        em[:len(efl)] = True
-        return e_f, e_t, em
-
-    # mirror state seeded from the base routing
-    m = ResidentPGO.__new__(ResidentPGO)
-    ef0, et0, em0 = padded(ef, et)
-    claimed = _host_claim(ef0, et0, V)
-    le_f = ef0[~claimed & em0]
-    le_t = et0[~claimed & em0]
-    st = {"plan": plan, "V": V,
-          "fillsF": np.bincount(np.minimum(le_f // plan.s, plan.trips - 1),
-                                minlength=plan.trips).astype(np.int64),
-          "fillsT": np.bincount(np.minimum(le_t // plan.s, plan.trips - 1),
-                                minlength=plan.trips).astype(np.int64),
-          "claimed_pairs": np.zeros(V, bool)}
-    st["claimed_pairs"][ef0[claimed]] = True
-
-    # append new edges (mix of loops; chain pairs are all claimed)
-    new = [(50, 400), (200, 260), (10, 300), (470, 480)]
-    prep = type("P", (), {})()
-    prep.e_from = np.asarray([a for a, _ in new], np.int32)
-    prep.e_to = np.asarray([b for _, b in new], np.int32)
-    prep.e_T = np.tile(np.eye(4, dtype=np.float32), (len(new), 1, 1)) * 1.0
-    for j in range(len(new)):
-        prep.e_T[j, 0, 3] = 10.0 + j       # distinguishable payloads
-    prep.e_cov = np.tile(np.eye(6, dtype=np.float32), (len(new), 1, 1))
-    prep.e_rm = np.ones(len(new), np.float32)
-    assert m._ranges_fits(st, prep.e_from, prep.e_to)
-    chain, loop, qup = m._route_new_edges(st, prep)
-    assert len(chain[0]) == 0 and len(loop[0]) == len(new)
-
-    # ground truth: full routing of the final set
-    ef1 = ef + [a for a, _ in new]
-    et1 = et + [b for _, b in new]
-    ef1p, et1p, em1 = padded(ef1, et1)
-    eT1 = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
-    for j in range(len(new)):
-        eT1[len(ef) + j] = prep.e_T[j]
-    ec1 = np.tile(np.eye(6, dtype=np.float32), (E, 1, 1))
-    rm1 = np.ones(E, np.float32)
-    routedT, _, rem, _, fw, tw, qsrc = host_route_ranges(
-        ef1p, et1p, eT1, ec1, em1, rm1, V, plan)
-    Vp = plan.s * plan.trips
-    for j, (lane, q) in enumerate(zip(loop[0], qup[0])):
-        np.testing.assert_array_equal(routedT[Vp + lane], prep.e_T[j])
-        assert rem[Vp + lane] == 1.0
-        assert fw[lane] == prep.e_from[j] % plan.s
-        assert tw[q] == prep.e_to[j] % plan.s
-        assert qsrc[q] == lane
-
-
-@pytest.mark.slow
-def test_ranges_rescue_when_no_resident_plan(monkeypatch):
-    """Bucket-padding inflation (r5 chip finding): right after an edge
-    bucket doubles, the emask-BLIND loop count includes every padding
-    slot and layout_plan returns None — production used to fall onto the
-    10-50x slower XLA loop (587 ms/call measured at the 32k bucket).
-    The rescue tier routes through the emask-AWARE sorted-RANGES layout
-    instead. Simulated here by monkeypatching layout_plan to None and
-    the accelerator gate to True (the kernel itself runs in interpret
-    mode on the real CPU backend); both the classic dispatcher and the
-    resident mirror must take ranges and agree with the XLA result."""
-    from pgslam_tpu.optim import lm_pallas, resident
-    from pgslam_tpu.optim.pgo import PGOConfig
-
-    monkeypatch.setattr(lm_pallas, "layout_plan", lambda *a, **k: None)
-    monkeypatch.setattr(resident, "layout_plan", lambda *a, **k: None)
-    # fits_vmem and factored_plan must also fail (a real padded-bucket
-    # blowup fails all three — layout_plan is derived from them);
-    # otherwise the onehot-preferred gate nulls n_loop before the rescue
-    # and the fp gate skips the ranges attempt.
-    monkeypatch.setattr(lm_pallas, "fits_vmem", lambda *a, **k: False)
-    monkeypatch.setattr(resident, "fits_vmem", lambda *a, **k: False)
-    monkeypatch.setattr(lm_pallas, "factored_plan", lambda *a, **k: None)
-    monkeypatch.setattr(resident, "factored_plan", lambda *a, **k: None)
-    monkeypatch.setattr(lm_pallas, "_on_accelerator", lambda: True)
-    monkeypatch.setattr(resident, "_on_accelerator", lambda: True)
-
-    cfg = OptimizerConfig(pgo=PGOConfig(solver="pcg", max_iterations=3,
-                                        cg_iterations=10))
-    # ground truth: the pure-XLA path with rescue disabled via env
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_RANGES", "0")
-    xla_out, _ = _run_sequence("off", n=40, opt_cfg=cfg,
-                               closures=((5, 35), (2, 30)))
-    monkeypatch.delenv("PGSLAM_PGO_FORCE_RANGES")
-    res_classic, _ = _run_sequence("off", n=40, opt_cfg=cfg,
-                                   closures=((5, 35), (2, 30)))
-    res_mirror, opt = _run_sequence("auto", n=40, opt_cfg=cfg,
-                                    closures=((5, 35), (2, 30)))
-    assert opt._mirror._st["kind"] == "ranges"
-    # ranges vs the XLA loop are different solvers mid-convergence (3 LM
-    # iters, cg=10): agreement is solver-tolerance, not bitwise
-    np.testing.assert_allclose(xla_out, res_classic, atol=1e-3)
-    # classic-rescue vs mirror-rescue run the SAME kernel layout: tight
-    np.testing.assert_allclose(res_classic, res_mirror, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_resident_ranges_path_matches_classic(monkeypatch):
-    """End-to-end through the forced sorted-RANGES kernel (interpret
-    mode on CPU): the resident mirror's incremental routing + fused
-    delta step reproduces the classic host_route_ranges path."""
-    # Force the full chain -> factored -> ranges ladder on a small CPU
-    # graph: keep the chain count (onehot otherwise wins at this size),
-    # force the factored incidence, and force the ranges take.
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_CHAIN", "1")
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_FACTORED", "1")
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_RANGES", "1")
-    from pgslam_tpu.optim.pgo import PGOConfig
-    cfg = OptimizerConfig(pgo=PGOConfig(solver="lm_pallas",
-                                        max_iterations=3,
-                                        cg_iterations=10))
-    classic, _ = _run_sequence("off", n=40, opt_cfg=cfg,
-                               closures=((5, 35), (2, 30)))
-    res, opt = _run_sequence("auto", n=40, opt_cfg=cfg,
-                             closures=((5, 35), (2, 30)))
-    assert opt._mirror._st["kind"] == "ranges"
-    np.testing.assert_allclose(classic, res, atol=1e-5)
 
 
 def test_graph_token_survives_id_reuse():
@@ -430,11 +281,13 @@ def test_double_restore_rebuilds_each_time(tmp_path):
 
 
 def test_prepare_failure_falls_back_to_classic(monkeypatch):
-    """A HOST-side error in the resident prepare (layout decision,
-    routing plan, stale bookkeeping) must take the same fail-soft road
-    as a device failure: classic path for the batch, mirror
-    invalidated, SLAM loop alive."""
+    """A HOST-side error in the resident prepare (stale bookkeeping)
+    must take the same fail-soft road as a device failure: classic path
+    for the batch, mirror invalidated, fallback counted, SLAM loop
+    alive."""
     from pgslam_tpu.optim import resident
+    from pgslam_tpu.utils import counters
+    before = counters["optimizer/resident_fallbacks"]
 
     rng = np.random.default_rng(7)
     mm = MapManager()
@@ -455,6 +308,7 @@ def test_prepare_failure_falls_back_to_classic(monkeypatch):
                      np.eye(6, dtype=np.float32) * 0.01)   # classic fallback
     assert opt.last_stats is not None
     assert opt._mirror._st is None
+    assert counters["optimizer/resident_fallbacks"] == before + 1
     opt.add_new_data(1, 18, _closure(poses, 1, 18),
                      np.eye(6, dtype=np.float32) * 0.01)   # rebuilds
     assert opt._mirror._st is not None
@@ -468,74 +322,3 @@ def test_prepare_failure_falls_back_to_classic(monkeypatch):
     g, g2 = mm.get_graph(), mm2.get_graph()
     np.testing.assert_array_equal(g.optimized_poses[:g.n_vertices],
                                   g2.optimized_poses[:g2.n_vertices])
-
-
-def test_hysteresis_dry_runs_capacity(monkeypatch):
-    """When the layout decision flips ranges -> jit and the hysteresis
-    keeps the frozen ranges layout, the capacity dry-run must still
-    gate it: an overflowing batch forces a rebuild instead of letting
-    _route_new_edges raise mid-execute."""
-    from pgslam_tpu.optim import resident
-
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_CHAIN", "1")
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_FACTORED", "1")
-    monkeypatch.setenv("PGSLAM_PGO_FORCE_RANGES", "1")
-    from pgslam_tpu.optim.pgo import PGOConfig
-    cfg = OptimizerConfig(pgo=PGOConfig(solver="lm_pallas",
-                                        max_iterations=2,
-                                        cg_iterations=5))
-    rng = np.random.default_rng(9)
-    mm = MapManager()
-    opt = Optimizer(mm, dataclasses.replace(cfg, resident="auto"))
-    poses = _chain_world(mm, 40, rng)
-    opt.add_new_data(5, 35, _closure(poses, 5, 35),
-                     np.eye(6, dtype=np.float32) * 0.01)
-    assert opt._mirror._st["kind"] == "ranges"
-
-    # Decision now flips to jit while the frozen plan cannot absorb the
-    # batch — prepare must answer rebuild=True, not carry a doomed
-    # delta into execute.
-    monkeypatch.setattr(resident.ResidentPGO, "_decide",
-                        lambda self, *a: ("jit", "factored", 128, False,
-                                          None))
-    monkeypatch.setattr(resident.ResidentPGO, "_ranges_fits",
-                        lambda self, st, ef, et: False)
-    g = mm.get_graph()
-    prep = opt._mirror.prepare(
-        g, 0, [(2, 30, _closure(poses, 2, 30),
-                np.eye(6, dtype=np.float32) * 0.01)])
-    assert prep.rebuild
-
-    # ...and when the batch DOES fit, hysteresis keeps the layout.
-    monkeypatch.setattr(resident.ResidentPGO, "_ranges_fits",
-                        lambda self, st, ef, et: True)
-    prep2 = opt._mirror.prepare(
-        g, 0, [(3, 28, _closure(poses, 3, 28),
-                np.eye(6, dtype=np.float32) * 0.01)])
-    assert not prep2.rebuild
-
-
-def test_host_loop_count_matches_dict_reference():
-    """The vectorized chain-lane count against the original
-    dict-setdefault form, across duplicates, reversed edges,
-    out-of-range ids and interleaved loop closures."""
-    from pgslam_tpu.optim.lm_pallas import host_loop_count
-
-    def ref_count(ef, et, V):
-        is_pair = (et == ef + 1) & (ef >= 0) & (et < V)
-        first = {}
-        for e in np.nonzero(is_pair)[0]:
-            first.setdefault(int(ef[e]), int(e))
-        return int(len(ef) - len(first))
-
-    rng = np.random.default_rng(13)
-    for V, E in ((10, 14), (64, 100), (257, 600)):
-        ef = rng.integers(-2, V + 2, E).astype(np.int32)
-        et = np.where(rng.random(E) < 0.6, ef + 1,
-                      rng.integers(0, V, E)).astype(np.int32)
-        assert host_loop_count(ef, et, V) == ref_count(ef, et, V)
-    # pure chain and empty
-    ef = np.arange(9, dtype=np.int32)
-    assert host_loop_count(ef, ef + 1, 10) == 0
-    assert host_loop_count(np.zeros(0, np.int32),
-                           np.zeros(0, np.int32), 10) == 0

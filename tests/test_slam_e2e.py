@@ -110,3 +110,33 @@ def test_loop_closure_fires():
     err = np.linalg.norm(T_est[:3, 3] - truth[-1][:3, 3])
     drift_err = np.linalg.norm(odom[-1][:3, 3] - truth[-1][:3, 3])
     assert err < 0.5 * drift_err, f"err {err} vs drift {drift_err}"
+
+
+@pytest.mark.gpu
+def test_loop_closure_fires_on_card(gpu):
+    # The ring drive of test_loop_closure_fires through PoseGraphSlam on
+    # the card, with the matcher kernel: closes the loop and beats drift.
+    import dataclasses
+
+    import jax
+    rng = np.random.default_rng(3)
+    scans, odom, truth = loop_sequence(
+        rng, n_scans=140, scan_points=1024, radius=12.0, max_range=8.0,
+        noise=0.002, odom_drift=0.002)
+    cfg = loop_config()
+    icp = dataclasses.replace(cfg.localizer.icp, matcher="pallas")
+    cfg = dataclasses.replace(
+        cfg, localizer=dataclasses.replace(cfg.localizer, icp=icp),
+        loop_closer=dataclasses.replace(cfg.loop_closer, icp=icp))
+    with jax.default_device(gpu):
+        slam = PoseGraphSlam(cfg)
+        T_rs = np.eye(4, dtype=np.float32)
+        for i, (scan, T_odom) in enumerate(zip(scans, odom)):
+            slam.add_data(i, "world", T_odom, T_rs, scan)
+        g = slam.get_graph()
+        from pgslam_tpu.graph.pose_graph import LOOP_CONSTRAINT
+        n_loops = int(np.sum(g.edge_type[:g.n_edges] == LOOP_CONSTRAINT))
+        err = np.linalg.norm(slam.T_world_robot[:3, 3] - truth[-1][:3, 3])
+    drift_err = np.linalg.norm(odom[-1][:3, 3] - truth[-1][:3, 3])
+    assert n_loops >= 1
+    assert err < 0.5 * drift_err, f"err {err} vs drift {drift_err}"
